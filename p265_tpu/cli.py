@@ -1,7 +1,7 @@
 """Command-line interface: decode / encode / info.
 
 Examples:
-  python -m p265_tpu.cli decode -i in.265 -o out.yuv --backend tpu --md5
+  python -m p265_tpu.cli decode -i in.265 -o out.yuv --md5
   python -m p265_tpu.cli encode -i in.yuv --size 416x240 -o out.265 --qp 32 \
       --gop RA --frames 9
   python -m p265_tpu.cli info -i in.265
@@ -16,7 +16,7 @@ def _cmd_decode(args):
     import numpy as np
 
     from p265_tpu import yuv
-    if args.backend == "tpu":
+    if args.backend == "device":
         if args.pipelined:
             from p265_tpu.pipeline.async_decoder import \
                 PipelinedTpuDecoder as Dec
@@ -117,14 +117,15 @@ def _cmd_info(args):
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(prog="p265_tpu",
-                                 description="TPU-native HEVC decoder framework")
+    ap = argparse.ArgumentParser(
+        prog="p265_tpu", description="HEVC Main-profile decoder on JAX devices")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     d = sub.add_parser("decode", help="decode an Annex-B HEVC stream")
     d.add_argument("-i", "--input", required=True)
     d.add_argument("-o", "--output")
-    d.add_argument("--backend", choices=("golden", "tpu"), default="tpu")
+    d.add_argument("--backend", choices=("golden", "device"),
+                   default="device")
     d.add_argument("--md5", action="store_true")
     d.add_argument("--metrics", help="append JSONL run metrics to this file")
     d.add_argument("--resilient", action="store_true",

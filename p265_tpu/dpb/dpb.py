@@ -1,7 +1,7 @@
 """Decoded picture buffer: POC, RPS application, reference lists, bumping
 (spec 8.3.1-8.3.4, C.5).
 
-Device-resident picture slabs in the TPU pipeline; plain NumPy here (the DPB
+Device-resident picture slabs in the device pipeline; plain NumPy here (the DPB
 logic is identical, only the plane storage differs).
 """
 from __future__ import annotations

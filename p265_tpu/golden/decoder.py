@@ -1,6 +1,6 @@
 """Golden scalar HEVC decoder: Annex-B stream -> YUV frames (output order).
 
-This is the oracle (SURVEY.md 4.2): spec-first, sequential, NumPy.  The TPU
+This is the oracle (SURVEY.md 4.2): spec-first, sequential, NumPy.  The device
 pipeline subclasses DecoderBase with a device reconstruction hook; both share
 Stage-A parsing, the DPB, and motion-context plumbing.
 """

@@ -1,7 +1,7 @@
 """Scalar/NumPy golden transforms: dequant, inverse + forward DCT/DST, quant.
 
 All integer arithmetic, bit-exact per spec 8.6.  These are the oracle for the
-Pallas kernels in p265_tpu.kernels.itransform.
+device kernels in p265_tpu.kernels.itransform.
 """
 from __future__ import annotations
 
@@ -53,6 +53,37 @@ def transform_skip_residual(levels_dequant: np.ndarray) -> np.ndarray:
     r = (levels_dequant.astype(np.int64) << 7)
     r = (r + (1 << (bd_shift - 1))) >> bd_shift
     return np.clip(r, -32768, 32767).astype(np.int32)
+
+
+def batch_residual_reference(levels, qp, is_dst, tskip, bypass,
+                             log2_size: int) -> np.ndarray:
+    """Residuals of a [N, s, s] batch of TUs, one TU at a time: the oracle
+    for kernels.itransform.batch_residual (bypass lanes pass through)."""
+    out = np.empty_like(levels)
+    for i in range(levels.shape[0]):
+        if bypass[i]:
+            out[i] = levels[i]
+            continue
+        d = dequant(levels[i], int(qp[i]), log2_size)
+        out[i] = (transform_skip_residual(d) if tskip[i]
+                  else inverse_transform(d, log2_size, bool(is_dst[i])))
+    return out
+
+
+def random_tu_batch(rng, log2_size: int, n: int):
+    """A random [n, s, s] TU batch with every lane kind: sparse and
+    full-range levels, DST and transform-skip lanes (4x4 only), bypass lanes.
+    -> (levels, qp, is_dst, tskip, bypass)"""
+    s = 1 << log2_size
+    lv = ((rng.random((n, s, s)) < 0.25)
+          * rng.integers(-300, 300, (n, s, s))).astype(np.int32)
+    lv[: n // 16] = rng.integers(-32768, 32768, (n // 16, s, s))
+    qp = rng.integers(0, 52, n).astype(np.int32)
+    four = log2_size == 2
+    dst = (rng.random(n) < 0.4) if four else np.zeros(n, bool)
+    tskip = ((rng.random(n) < 0.3) & ~dst) if four else np.zeros(n, bool)
+    bypass = rng.random(n) < 0.1
+    return lv, qp, dst, tskip, bypass
 
 
 # ---------------------------------------------------------------------------

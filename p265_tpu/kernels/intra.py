@@ -1,4 +1,4 @@
-"""TPU batched intra prediction (spec 8.4.4.2) over wavefront TU batches.
+"""Batched device intra prediction (spec 8.4.4.2) over wavefront TU batches.
 
 One jitted function per (size, batch_capacity): gathers reference samples via
 plan-time coordinate tables (availability/substitution already resolved on the

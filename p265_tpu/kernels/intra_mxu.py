@@ -1,4 +1,4 @@
-"""MXU-formulated intra prediction: one matmul per wavefront step per bucket.
+"""Matmul-formulated intra prediction: one matmul per wavefront step per bucket.
 
 HEVC intra prediction (spec 8.4.4.2) is *linear* in the (filtered) reference
 samples for every mode -- planar, DC interior, and all 33 angular modes are
@@ -15,11 +15,12 @@ non-linear pieces -- the [1 2 1]/strong reference smoothing (data-dependent
 decision), the DC/vertical/horizontal edge filters (nested floors + clip),
 and the MC-pred substitution -- stay as cheap vector ops.
 
-This replaces ~60 VPU ops (incl. 4 take_along_axis gathers) per step per
+This replaces ~60 vector ops (incl. 4 take_along_axis gathers) per step per
 bucket in kernels/intra.py with: 1 ref gather + filter + 1 table gather +
-1 MXU matmul + edge patches + 1 scatter.  The matmul runs in bfloat16 on the
-MXU: all |A| entries <= 128 and refs <= 255 are exactly representable, and
-row sums <= 64 bound the f32 accumulator below 2^15, so the result is exact.
+1 matmul + edge patches + 1 scatter.  The matmul runs in bfloat16 with f32
+accumulation: all |A| entries <= 128 and refs <= 255 are exactly
+representable, and row sums <= 96 bound the f32 accumulator below 2^15, so
+the result is exact.
 
 Bit-exactness vs kernels/intra.py and the golden decoder is enforced by
 tests/test_intra_mxu.py.
@@ -120,7 +121,7 @@ def _a_table(size: int) -> np.ndarray:
         A[m] = Am
 
     assert np.abs(A).max() <= 128 and A.min() >= 0
-    # row sums (<=96) bound the f32 MXU accumulation to <2^15: exact in bf16
+    # row sums (<=96) bound the f32 accumulation to <2^15: exact in bf16
     assert A.sum(axis=2).max() <= 96
     return A.astype(np.int16)
 

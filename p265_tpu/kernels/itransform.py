@@ -1,10 +1,11 @@
-"""TPU batched dequant + inverse transform (spec 8.6.3/8.6.4).
+"""Batched dequant + inverse transform on the device (spec 8.6.3/8.6.4).
 
 Exact integer path: int32 arithmetic throughout (XLA int ops are exact, shifts
-map directly -- SURVEY.md 7.1).  The MXU fast path decomposes the int16
-coefficients into 8-bit limbs so both stages run as bf16/f32 matmuls with
-exact f32 accumulation (partial sums < 2^24); enabled via use_mxu=True and
-tested bit-exact against the int32 path.
+map directly -- SURVEY.md 7.1).  The limb path (use_mxu=True) decomposes the
+int16 coefficients into 8-bit limbs so both stages run as bf16 matmuls with
+f32 accumulation: every operand holds at most 8 significant bits and every
+partial sum stays below 2^24, so the result is exact under any summation
+order (and under TF32).  Tested bit-exact against the int32 path.
 
 Golden oracle: p265_tpu.golden.transform.
 """
@@ -64,8 +65,8 @@ def _imatmul_exact(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def _imatmul_mxu(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Exact int matmul on the MXU: split a (int16 range) into 8-bit limbs,
-    multiply in bf16 with f32 accumulation (all partials < 2^24 -> exact)."""
+    """Exact int matmul as bf16 matrix products: split a (int16 range) into
+    8-bit limbs, multiply with f32 accumulation (all partials < 2^24)."""
     a_hi = (a >> 8).astype(jnp.bfloat16)            # [-128, 127]
     a_lo = (a & 0xFF).astype(jnp.bfloat16)          # [0, 255]
     bf = b.astype(jnp.bfloat16)                     # |b| <= 90
@@ -74,29 +75,6 @@ def _imatmul_mxu(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     lo = jax.lax.dot_general(a_lo, bf, (((2,), (0,)), ((), ())),
                              preferred_element_type=jnp.float32)
     return (hi.astype(jnp.int32) << 8) + lo.astype(jnp.int32)
-
-
-# Fused Pallas dequant+IDCT in the shipping path (VERDICT r3 ask #7): on
-# TPU backends, residual batches of 8x8 and up (no scaling lists) route to
-# kernels/pallas_itransform -- one VMEM-resident kernel instead of the
-# XLA dequant + two matmul stages with HBM round trips (1.08-1.25x
-# standalone, BASELINE.md per-kernel table).  4x4 stays on XLA (gather-
-# bound; the Pallas variant loses there).
-USE_PALLAS_RESIDUAL = True
-
-
-def batch_residual_auto(levels, qp, is_dst, tskip, log2: int,
-                        use_mxu: bool = True, bypass=None, scale_m=None):
-    """Traced residual dispatch: Pallas fused kernel when profitable and
-    available, XLA path otherwise.  Bit-exact either way."""
-    if (USE_PALLAS_RESIDUAL and scale_m is None and log2 >= 3
-            and jax.default_backend() == "tpu"):
-        from p265_tpu.kernels.pallas_itransform import pallas_batch_residual
-        by = bypass if bypass is not None else jnp.zeros(qp.shape[0], bool)
-        return pallas_batch_residual(levels, qp, is_dst, tskip, by, log2)
-    return batch_residual.__wrapped__(levels, qp, is_dst, tskip, log2,
-                                      use_mxu, bypass=bypass,
-                                      scale_m=scale_m)
 
 
 @functools.partial(jax.jit, static_argnames=("log2", "use_mxu"))

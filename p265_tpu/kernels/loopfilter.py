@@ -1,4 +1,4 @@
-"""TPU loop filters: vectorized deblocking + SAO (spec 8.7), bit-exact.
+"""Device loop filters: vectorized deblocking + SAO (spec 8.7), bit-exact.
 
 Host side precomputes per-edge-segment parameter grids (bS, beta, tc) from the
 FramePlan metadata maps -- sharing the bS derivation with the golden filter --

@@ -1,4 +1,4 @@
-"""TPU motion compensation: batched 8-tap luma / 4-tap chroma interpolation
+"""Device motion compensation: batched 8-tap luma / 4-tap chroma interpolation
 (spec 8.5.4), bit-exact vs golden/inter.py.
 
 Inter PUs are split on the host into fixed-size aligned blocks; the device
@@ -41,9 +41,7 @@ def _mc_blocks(refs, pos, ref_idx, mv, frac_filters, block: int, taps: int,
     refs: [n_refs, H, W] int32 reference planes (stacked); when
     slice_pad > 0 they are edge-padded by that many pixels on each side
     and windows are fetched as CONTIGUOUS (1, span, span) dynamic slices
-    -- 1.47x over the per-element gather at the 16x16 bucket
-    (profiling/probe_mc_gather.py; TPU gathers pay per-element, slices
-    pay per-window).
+    instead of the per-element clamped gather (chip_smoke.py times both).
     pos: [n, 2] (y, x) block origin; ref_idx: [n]; mv: [n, 2] (mvx, mvy)
     frac_filters: [n, 2, taps] H and V filter taps for each block
     Returns [n, block, block] int32 (pre-rounding intermediates).

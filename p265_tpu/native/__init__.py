@@ -2,8 +2,9 @@
 via ctypes, and exposes drop-in decoder/context classes.
 
 The pure-Python engine (entropy/engine.py) remains the reference; tests
-assert exact agreement.  If no compiler is available the import degrades
-gracefully (available() -> False) and everything runs pure Python.
+assert exact agreement.  If the build fails, available() is False and
+everything runs pure Python (about 10x slower Stage A); build_error() says
+why, so a caller that needs the C lane can fail loudly.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ _SRC_CTU = os.path.join(_DIR, "ctu.c")  # includes cabac.c (single TU)
 _SO = os.path.join(_DIR, "_cabac.so")
 
 _lib = None
+_build_error: str | None = None
 
 
 class _Cabac(ctypes.Structure):
@@ -43,17 +45,25 @@ class _CtxOffsets(ctypes.Structure):
 
 
 def _build() -> bool:
+    global _build_error
     try:
         src = _SRC_CTU if os.path.exists(_SRC_CTU) else _SRC
         newest = max(os.path.getmtime(p) for p in (_SRC, _SRC_CTU)
                      if os.path.exists(p))
         if not os.path.exists(_SO) or os.path.getmtime(_SO) < newest:
+            # build beside the target, then rename: concurrent builders
+            # (test workers) never load a half-written library
+            tmp = f"{_SO}.{os.getpid()}"
             subprocess.run(
-                ["cc", "-O3", "-fPIC", "-shared", "-o", _SO, src],
+                ["cc", "-O3", "-fPIC", "-shared", "-o", tmp, src],
                 check=True, capture_output=True)
+            os.replace(tmp, _SO)
         return True
-    except Exception:
-        return False
+    except subprocess.CalledProcessError as e:
+        _build_error = f"cc exited {e.returncode}: {e.stderr.decode()[-2000:]}"
+    except OSError as e:
+        _build_error = repr(e)
+    return False
 
 
 def _load():
@@ -91,6 +101,11 @@ def _load():
 
 def available() -> bool:
     return _load() is not None
+
+
+def build_error() -> str | None:
+    """Why the C lane failed to build (None if it built or was not tried)."""
+    return _build_error
 
 
 _OFFS = None

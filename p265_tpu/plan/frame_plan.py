@@ -5,7 +5,7 @@ size-bucketed tensors plus a wavefront schedule:
 
 - every TU gets a wavefront step: step = 1 + max(step of producers of every
   reference sample it reads).  TUs within a step are independent and run
-  batched on the TPU (SURVEY.md 7.4).
+  batched on the device (SURVEY.md 7.4).
 - intra reference availability + substitution (spec 8.4.4.2.2) are resolved
   HERE into per-TU gather coordinate tables: ref i reads plane[ys[i], xs[i]],
   or the mid-value 128 when no reference exists.  This erases all

@@ -29,7 +29,7 @@ def _pad_stream_plane(pp, sizes, n_steps, caps, use_mxu):
     """Stacked step tensors + residuals for one stream's plane, padded to the
     fleet-common (sizes, n_steps, caps)."""
     ph, pw = pp.shape
-    own_steps, own = (_stack_plane(pp, pallas=False) if pp.batches
+    own_steps, own = (_stack_plane(pp) if pp.batches
                       else (0, {}))
     stacked = {}
     residuals = {}
@@ -96,10 +96,11 @@ def sharded_multistream_recon(tplans: list, mesh: Mesh, axis: str = "stream",
         caps = {}
         for pp in pps_:
             if pp.batches:
-                ns, st = _stack_plane(pp, pallas=False)
+                ns, st = _stack_plane(pp)
                 n_steps = max(n_steps, ns)
                 for log2, d in st.items():
-                    caps[log2] = max(caps.get(log2, 8), d["pos"].shape[1])
+                    caps[log2] = max(caps.get(log2, 8),
+                                     d["idx_map"].shape[1])
         for log2 in sizes:
             caps.setdefault(log2, 8)
         streams = [_pad_stream_plane(pp, sizes, n_steps, caps, use_mxu)
@@ -115,7 +116,7 @@ def sharded_multistream_recon(tplans: list, mesh: Mesh, axis: str = "stream",
 
     def body(*flat):
         # local shard: leading stream dim == 1 per device (S == N); avoid
-        # vmap-of-scan (pathological TPU compile) by squeezing it
+        # a vmap-of-scan by squeezing it
         it = iter(flat)
         outs = []
         for (_, _, _, shape, sizes) in per_plane_inputs:

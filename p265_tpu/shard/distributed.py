@@ -10,8 +10,7 @@ shards; each process verifies its own streams.
 
 Tested single-host-multi-process (tests/test_distributed.py spawns 2
 processes over a localhost coordinator with CPU devices); the same code
-runs unmodified on 2 real TPU hosts over DCN, per the jax.distributed
-contract.
+runs on several GPU hosts, per the jax.distributed contract.
 """
 from __future__ import annotations
 
@@ -25,15 +24,20 @@ from p265_tpu.shard.decoder import _pad_stream_plane
 
 
 def initialize(coordinator: str, num_processes: int, process_id: int,
-               local_devices: int = 4) -> None:
-    """Join the distributed runtime (call before first device use)."""
+               local_devices: int = 4, local_device_ids=None) -> None:
+    """Join the distributed runtime (call before first device use).
+
+    local_devices: CPU devices per process (tests).  local_device_ids: the
+    GPUs this process opens; pass them when several processes share a host,
+    or each would open (and reserve memory on) every card."""
     try:
         jax.config.update("jax_num_cpu_devices", local_devices)
     except Exception:
         pass
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=num_processes,
-                               process_id=process_id)
+                               process_id=process_id,
+                               local_device_ids=local_device_ids)
 
 
 def global_mesh(axis: str = "stream") -> Mesh:
@@ -105,8 +109,7 @@ def decode_segments_production(my_segments: list[bytes],
     """Decode IRAP segments through the PRODUCTION TpuDecoder (native C
     Stage-A parse, fused device MC from device-resident DPB slabs, loop
     filters, full DPB) under the jax.distributed runtime, with GLOBAL
-    Stage-B shape agreement (VERDICT.md r4 ask #5: the real decoder, not
-    the frame[0]-intra demo).
+    Stage-B shape agreement (the real decoder, not a frame[0]-intra demo).
 
     Protocol: (1) every process parses + tensorizes only its own segments,
     feeding one shared ShapePolicy; (2) one allgather merges every
@@ -167,7 +170,7 @@ def decode_streams_distributed(my_streams: list[bytes], mesh: Mesh,
             pp = tp.planes[p_idx]
             if not pp.batches:
                 continue
-            ns, st = _stack_plane(pp, pallas=False)
+            ns, st = _stack_plane(pp)
             need[0] = max(need[0], ns)
             for i, log2 in enumerate(LOG2_SIZES):
                 if log2 in st:

@@ -50,7 +50,7 @@ def sharded_stencil_step(mesh: Mesh, planes: jnp.ndarray) -> jnp.ndarray:
     """Demonstration/validation step for the multi-chip path: per-stream
     residual-transform compute + a vertical 3-tap stencil across row-shards
     with ppermute halo exchange + global psum checksum.  Used by
-    __graft_entry__.dryrun_multichip and the sharding tests.
+    the sharding tests.
 
     planes: [S, H, W] int32, S sharded over 'stream', H over 'space'.
     """
@@ -60,7 +60,7 @@ def sharded_stencil_step(mesh: Mesh, planes: jnp.ndarray) -> jnp.ndarray:
 
     def step(local):  # [S_loc, H_loc, W]
         s, hl, wl = local.shape
-        # MXU-shaped compute: 8x8 transform over row bands (exact int path)
+        # matmul-shaped compute: 8x8 transform over row bands (exact int path)
         bands = local.reshape(s, hl // 8, 8, wl // 8, 8)
         bands = jnp.einsum("ij,shjwk->shiwk", m, bands,
                            preferred_element_type=jnp.int32) >> 6

@@ -1,6 +1,6 @@
 """Spatially sharded Stage-B: ONE picture's recon + loop filters over the
 'space' mesh axis (SURVEY.md §2.3 halo row, §5 sequence-parallel analogue;
-configs 4/5 of BASELINE.md).
+configs 4/5 of BASELINE.json).
 
 Design (codec-native sequence parallelism — the CTU grid is the "sequence"):
 
@@ -168,7 +168,7 @@ def reconstruct_spatial(tplan, mesh: Mesh, axis: str = "space",
     for p_idx, pp in enumerate(tplan.planes):
         ph, pw = pp.shape
         hl = _block_rows(ph, n_dev, ctb if p_idx == 0 else ctb >> 1)
-        n_steps, stacked = _stack_plane(pp, pallas=False)
+        n_steps, stacked = _stack_plane(pp)
         sizes = tuple(sorted(pp.batches.keys()))
         tu = {log2: {k: jnp.asarray(v) for k, v in d.items()
                      if k not in ("idx_map", "okc", "pos4", "counts")}
@@ -471,7 +471,7 @@ def decode_picture_spatial(plan: FramePlan, refs: dict, mesh: Mesh,
     row-sharded wavefront recon -> halo deblock + SAO.
 
     Returns (prefilter, filtered) [y, cb, cr] numpy planes; bit-exact vs the
-    unsharded golden/TPU path (tests/test_spatial.py)."""
+    unsharded golden/device path (tests/test_spatial.py)."""
     from p265_tpu.plan.frame_plan import build_tensor_plan
     pred = mc_spatial(plan, refs, mesh, axis)
     tplan = build_tensor_plan(plan, refs=None, pred_planes=pred)

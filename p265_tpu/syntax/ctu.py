@@ -2,7 +2,7 @@
 
 Stage-A design (SURVEY.md 7.1): parsing emits a flat FramePlan (TU records in
 reconstruction z-order, PU motion records, per-4x4 metadata maps).
-Reconstruction is a separate pass (golden scalar or TPU kernels) over the
+Reconstruction is a separate pass (golden scalar or device kernels) over the
 plan.  The encoder serializes a pre-built FramePlan through the same traversal
 (CtuCoder with is_enc=True and planner callbacks), so decode/encode stay
 bit-symmetric by construction.  Motion-vector candidate derivation
@@ -31,7 +31,7 @@ def parse_workers() -> int:
     the host has at least 4 cores; below that the parallel paths stand
     down (measured on this 2-CPU host: 16 lanes 0.66x, 2 lanes 0.61x of
     sequential -- per-lane engine/state setup and GIL-held syntax Python
-    swamp the ~50 ms of 1080p parse work; VERDICT.md round 4 weak #4).
+    swamp the ~50 ms of 1080p parse work).
     Override with P265_TPU_PARSE_WORKERS (0/1 forces sequential, N>=2
     forces N lanes regardless of core count)."""
     import os

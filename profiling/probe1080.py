@@ -1,4 +1,4 @@
-"""Bisect the 1080p XLA/Mosaic compile blowup, stage by stage."""
+"""Bisect the 1080p XLA compile blowup, stage by stage."""
 import sys, time
 import numpy as np
 
@@ -11,8 +11,9 @@ log("backend", jax.default_backend())
 
 from p265_tpu.golden.decoder import GoldenDecoder
 from p265_tpu.plan.frame_plan import build_tensor_plan
+from tools.make_streams import get_stream
 
-data = open('/tmp/s1080.265','rb').read()
+data = get_stream("s1080")
 t0 = time.perf_counter()
 g = GoldenDecoder().decode_stream(data)[0]
 log("stage-A parse + golden recon", round(time.perf_counter()-t0, 2), "s")
@@ -25,7 +26,7 @@ from p265_tpu.pipeline.wavefront import (_merge_segments, _stack_plane,
                                          _round_up)
 pps_ = list(tp.planes)
 merged, offs = _merge_segments(pps_)
-n_steps, stacked = _stack_plane(merged, pallas=False)
+n_steps, stacked = _stack_plane(merged)
 log("merged n_steps", n_steps, "rounded", _round_up(n_steps, 32),
     "shape", merged.shape)
 for log2, d in sorted(stacked.items()):

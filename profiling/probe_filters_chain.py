@@ -12,8 +12,9 @@ def log(*a):
 log("backend", jax.default_backend())
 
 from p265_tpu.golden.decoder import GoldenDecoder
+from tools.make_streams import get_stream
 
-data = open('/tmp/s1080.265', 'rb').read()
+data = get_stream("s1080")
 t0 = time.perf_counter()
 g = GoldenDecoder().decode_stream(data)[0]
 log("parse+golden", round(time.perf_counter() - t0, 2))

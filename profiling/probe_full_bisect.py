@@ -20,8 +20,9 @@ from p265_tpu.golden.decoder import GoldenDecoder
 from p265_tpu.plan.frame_plan import build_tensor_plan
 from p265_tpu.pipeline.batch_decode import (_build_batch, _decode_batch_jit,
                                             _freeze, _thaw)
+from tools.make_streams import get_stream
 
-data = open('/tmp/s1080.265', 'rb').read()
+data = get_stream("s1080")
 t0 = time.perf_counter()
 g = GoldenDecoder().decode_stream(data)[0]
 tp = build_tensor_plan(g.plan)

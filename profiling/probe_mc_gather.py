@@ -1,8 +1,8 @@
 """MC window fetch: element gather (refs[r, ys, xs] advanced indexing, the
 current kernels/mc.py formulation) vs contiguous-slice gather
-(vmap(dynamic_slice) over edge-padded refs).  TPU gathers of scattered
-elements are the suspected MC bottleneck; slice gathers move the same
-windows as (1, span, span) contiguous blocks.
+(vmap(dynamic_slice) over edge-padded refs).  Slice gathers move the same
+windows as (1, span, span) contiguous blocks instead of scattered
+elements.
 """
 import os
 import sys
@@ -76,7 +76,7 @@ def main():
             f"slice {b * 1e3:7.2f} ms  ({a / b:5.2f}x)  exact={exact}")
 
 
-if __name__ == "__main__" and "--layout" not in sys.argv and "--pallas" not in sys.argv:
+if __name__ == "__main__" and "--layout" not in sys.argv:
     main()
 
 
@@ -107,46 +107,3 @@ def bench_layout():
 if __name__ == "__main__" and "--layout" in sys.argv:
     bench_layout()
 
-
-def bench_pallas():
-    from p265_tpu.kernels.mc import _mc_blocks, MC_PAD
-    from p265_tpu.kernels.pallas_mc import mc_blocks_pallas
-    from p265_tpu.tables import LUMA_FILTER, CHROMA_FILTER
-    rng = np.random.default_rng(0)
-    H, W, R = 1080, 1920, 4
-    P = MC_PAD
-    from p265_tpu.kernels.pallas_mc import extra_pad
-    eb, er = extra_pad()
-    refs = rng.integers(0, 255, (R, H, W)).astype(np.int32)
-    refs_p = jnp.asarray(np.pad(refs, ((0, 0), (P, P + eb), (P, P + er)),
-                                mode="edge").astype(np.uint8))
-    refs_j = jnp.asarray(refs)
-    for block, taps, nb in ((16, 8, 2048), (8, 8, 2048), (4, 8, 4096),
-                            (8, 4, 2048), (2, 4, 4096)):
-        span = block + taps - 1
-        filt = np.asarray(LUMA_FILTER if taps == 8 else CHROMA_FILTER,
-                          np.int32)
-        fmask = 3 if taps == 8 else 7
-        unit = 2 if taps == 8 else 3
-        half = taps // 2 - 1
-        pos = np.stack([rng.integers(0, H - block, nb),
-                        rng.integers(0, W - block, nb)], 1).astype(np.int32)
-        mv = rng.integers(-32, 32, (nb, 2)).astype(np.int32)
-        ridx = rng.integers(0, R, nb).astype(np.int32)
-        ff = np.stack([filt[mv[:, 0] & fmask], filt[mv[:, 1] & fmask]], 1)
-        t_xla = bench(lambda: _mc_blocks(refs_j, jnp.asarray(pos),
-                                         jnp.asarray(ridx), jnp.asarray(mv),
-                                         jnp.asarray(ff), block, taps, R,
-                                         slice_pad=0))
-        iy = (pos[:, 0] + (mv[:, 1] >> unit) - half + P).astype(np.int32)
-        ix = (pos[:, 1] + (mv[:, 0] >> unit) - half + P).astype(np.int32)
-        args = (refs_p, jnp.asarray(iy), jnp.asarray(ix), jnp.asarray(ridx),
-                jnp.asarray(np.ascontiguousarray(ff[:, 0])),
-                jnp.asarray(np.ascontiguousarray(ff[:, 1])))
-        t_pal = bench(lambda: mc_blocks_pallas(*args, block, taps))
-        log(f"block {block} taps {taps} n {nb}: xla-elem {t_xla*1e3:7.2f} ms"
-            f"  pallas {t_pal*1e3:7.2f} ms  ({t_xla/t_pal:5.2f}x)")
-
-
-if __name__ == "__main__" and "--pallas" in sys.argv:
-    bench_pallas()

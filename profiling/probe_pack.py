@@ -74,7 +74,7 @@ timeit("_hoist_inter", lambda: _hoist_inter(
 
 def stack():
     merged._stacked_cache = None
-    return _stack_plane(merged, pallas=False, policy=pol)
+    return _stack_plane(merged, policy=pol)
 
 timeit("_stack_plane", stack)
 

@@ -1,8 +1,8 @@
 """Profile the Stage-B wavefront scan: where does per-step time go?
 
 Times the full scan, then ablated variants of the per-step body (gather only,
-gather+predict no scatter, scatter only) on the real chip with representative
-step shapes, to locate the bottleneck (NOTES_ROUND2.md item 1).
+gather+predict no scatter, scatter only) on the device with representative
+step shapes, to locate the bottleneck.
 """
 from __future__ import annotations
 

@@ -43,7 +43,7 @@ def test_weighted_pred_with_longterm_refs():
 def test_dpb_stress_long_ra_sequence():
     """33-frame hierarchical RA GOP with reorder depth 2 and a tight DPB:
     output bumping at capacity must emit every frame exactly once, in POC
-    order, bit-exact through the TPU path."""
+    order, bit-exact through the device path."""
     n = 33
     sps = SPS(pic_width=96, pic_height=64, temporal_mvp_enabled=True,
               num_reorder_pics=2, max_dec_pic_buffering=5)

@@ -1,4 +1,4 @@
-"""Configs 2/3: P and B GOP round trips, golden + TPU, bit-exact."""
+"""Configs 2/3: P and B GOP round trips, golden + device, bit-exact."""
 import numpy as np
 import pytest
 

@@ -60,8 +60,8 @@ def test_fused_mc_ldp2_multiref():
 
 
 def test_fused_mc_ra_bframes():
-    # frame-DAG batching defaults OFF (measured 0.55x single-chip,
-    # BASELINE.md r5), so the RA stream compiles exactly 2 programs again
+    # frame-DAG batching defaults OFF, so the RA stream compiles exactly 2
+    # programs again
     _check(_stream("RA", n=5, seed=7))
 
 

@@ -1,5 +1,5 @@
 """Long-term reference pictures (spec 8.3.2 PocLtCurr, 8.5.3.2.7/.8 lt
-scaling gates): LDP-LT GOP round trips, golden + TPU, bit-exact."""
+scaling gates): LDP-LT GOP round trips, golden + device, bit-exact."""
 import numpy as np
 
 from p265_tpu.golden.decoder import GoldenDecoder

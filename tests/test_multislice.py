@@ -1,5 +1,5 @@
 """Multiple independent slices per picture (spec 7.3.6.1 / 6.4.1 slice
-availability), bit-exact on golden and TPU paths."""
+availability), bit-exact on golden and device paths."""
 import numpy as np
 import pytest
 

@@ -42,6 +42,22 @@ def test_multistream_dp_bit_exact():
             assert np.array_equal(outs[s][c], golds[s].prefilter[c]), (s, c)
 
 
+def test_multistream_dp_lane_cap_above_8():
+    """Steps holding more than 8 TUs of one size (512x512 intra: 16 lanes of
+    4x4): the fleet-common lane cap must come from each step map."""
+    from p265_tpu.pipeline.wavefront import _stack_plane
+    from tools.make_streams import _intra
+    golds = [GoldenDecoder().decode_stream(_intra(512, 512, seed=s))[0]
+             for s in (3, 4)]
+    plans = [build_tensor_plan(g.plan) for g in golds]
+    assert max(d["idx_map"].shape[1] for tp in plans for pp in tp.planes
+               if pp.batches for d in _stack_plane(pp)[1].values()) > 8
+    outs = sharded_multistream_recon(plans, _mesh1d(2))
+    for s, g in enumerate(golds):
+        for c in range(3):
+            assert np.array_equal(outs[s][c], g.prefilter[c]), (s, c)
+
+
 def test_sao_halo_sharded_bit_exact():
     plans, golds = _make_streams(1, w=128, h=128)
     g = golds[0]

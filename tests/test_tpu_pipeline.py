@@ -1,4 +1,4 @@
-"""TPU pipeline (Stage B) vs golden decoder: bit-exact end to end."""
+"""Device pipeline (Stage B) vs golden decoder: bit-exact end to end."""
 import numpy as np
 import pytest
 
